@@ -1,7 +1,7 @@
-/* qm2core — native runtime helpers for quickmer2_tpu.
+/* qm2core — native runtime helpers for quickmer2.
  *
- * The TPU compute path (codec, probe, scatter-add, edit-distance filter)
- * lives in JAX/Pallas; this library covers the host-side runtime work the
+ * The device compute path (codec, probe, scatter-add, edit-distance
+ * filter) lives in JAX; this library covers the host-side runtime work the
  * reference does in C (QuicKmer.c) and that pure Python cannot do at
  * speed: pointer-chasing the genome-order chain, order-dependent hash
  * placement for .qm export, bulk lookups for host-side verification, and
@@ -9,7 +9,7 @@
  * streams for device batches.
  *
  * Fresh implementation; behavioral parity targets are documented per
- * function against /root/reference/QuicKmer.c (cited file:line).
+ * function against the reference QuicKmer.c (cited file:line).
  *
  * Build: gcc -O3 -march=native -shared -fPIC -o libqm2core.so qm2core.c
  */

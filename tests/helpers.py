@@ -74,7 +74,7 @@ def run_ref(ref_bin: str, args: list[str], cwd: str) -> subprocess.CompletedProc
 
 def canonical_kmers_of(seq: str, k: int) -> list[int]:
     """Slow oracle: canonical k-mer codes of every full-ACGT window."""
-    from quickmer2_tpu.ops.codec import encode_kmer_string
+    from quickmer2.ops.codec import encode_kmer_string
     out = []
     for i in range(len(seq) - k + 1):
         w = seq[i : i + k]
@@ -83,3 +83,45 @@ def canonical_kmers_of(seq: str, k: int) -> list[int]:
         else:
             out.append(None)
     return out
+
+
+def smoke_world(seed: int = 0, n_bases: int = 60_000, n_reads: int = 3000,
+                err: float = 0.003):
+    """Small realistic genome (repeats, GC isochores), its unique-k-mer
+    dictionary (k=30, genome order, end positions) and 150 bp reads with
+    substitution errors — the data chip_smoke.py builds, at test size."""
+    import chip_smoke
+    realistic_genome, rehearsal = chip_smoke._tools()
+    rng = np.random.default_rng(seed)
+    g, _, _ = realistic_genome.make_genome(rng, n_bases)
+    kmers, pos = chip_smoke.unique_kmer_dictionary(g)
+    reads = rehearsal.simulate_reads_codes(rng, g, n_reads, 150, err)
+    return g, kmers, pos, reads
+
+
+def count_reads(engine: str, genome, kmers, pos, reads,
+                device_build: bool = False) -> np.ndarray:
+    """u16 depth of `reads` through one counting engine: a DepthCounter
+    layout, "anchored" (StreamCounter over an AnchoredIndex), or
+    "sharded" (StreamCounter over a 1 x 1 data/dict mesh)."""
+    import chip_smoke
+    from quickmer2.dictionary import Dictionary
+    from quickmer2.pipelines.count import DepthCounter, StreamCounter
+    dic = Dictionary.from_kmers_in_order(
+        kmers, chip_smoke.reference_hash_size(len(kmers)), 30)
+    codes = chip_smoke.code_stream(reads)
+    if engine == "anchored":
+        from quickmer2.ops.anchored import AnchoredIndex
+        index = AnchoredIndex.build(genome, pos, kmers, 30,
+                                    neighbor_bits=True,
+                                    device_build=device_build)
+        counter = StreamCounter(dic, mode="anchored", index=index)
+    elif engine == "sharded":
+        from quickmer2.parallel.count_parallel import ShardedDepthCounter
+        from quickmer2.parallel.mesh import make_mesh
+        counter = ShardedDepthCounter(dic, make_mesh(1, 1),
+                                      batch_bases=1 << 16)
+    else:
+        counter = DepthCounter(dic, batch_bases=1 << 16, layout=engine)
+    counter.feed_codes(codes)
+    return (counter.finish() & 0xFFFF).astype(np.uint16)

@@ -7,12 +7,12 @@ import os
 import numpy as np
 import pytest
 
-from quickmer2_tpu.config import SearchConfig
-from quickmer2_tpu.ops import codec
-from quickmer2_tpu.ops.anchored import (
+from quickmer2.config import SearchConfig
+from quickmer2.ops import codec
+from quickmer2.ops.anchored import (
     AnchoredDepthCounter, AnchoredIndex, rows_from_flat_codes)
-from quickmer2_tpu.pipelines import search as search_pipe
-from quickmer2_tpu.pipelines.count import DepthCounter, make_packer
+from quickmer2.pipelines import search as search_pipe
+from quickmer2.pipelines.count import DepthCounter, make_packer
 from tests import helpers
 
 K = 30
@@ -120,8 +120,8 @@ def test_mixed_strand_reads(world):
 def test_neighbor_bits_brute_force(world):
     """build_neighbor_bits against brute-force enumeration of every
     single-substitution variant of every valid genome window."""
-    from quickmer2_tpu.ops.anchored import build_neighbor_bits
-    from quickmer2_tpu.ops.packed_table import PackedTable
+    from quickmer2.ops.anchored import build_neighbor_bits
+    from quickmer2.ops.packed_table import PackedTable
 
     rng = np.random.default_rng(9)
     genome = helpers.random_genome(rng, 400)
@@ -167,7 +167,7 @@ def test_neighbor_bits_brute_force(world):
     assert expect.any()   # the planted ED1 pair must produce real hits
 
     # device builder must agree bit-for-bit (incl. across chunk seams)
-    from quickmer2_tpu.ops.anchored import build_neighbor_bits_device
+    from quickmer2.ops.anchored import build_neighbor_bits_device
     nb_dev = build_neighbor_bits_device(codes, table.rows, table.n_buckets, K)
     np.testing.assert_array_equal(nb_dev, expect)
     nb_chunked = build_neighbor_bits_device(codes, table.rows,
@@ -269,8 +269,8 @@ def test_variable_length_reads_route_to_flat(tmp_path):
     must match flat mode bit-for-bit: rows wider than the autodetected
     row width route to the flat per-k-mer path instead of raising
     (VERDICT Weak #5 / Next #6)."""
-    from quickmer2_tpu.io import formats
-    from quickmer2_tpu.pipelines.count import run_count
+    from quickmer2.io import formats
+    from quickmer2.pipelines.count import run_count
 
     rng = np.random.default_rng(11)
     d = str(tmp_path)
@@ -302,9 +302,9 @@ def test_qai_companion_persists_index(tmp_path):
     """First anchored count writes <fasta>.qai; a second invocation must
     load it WITHOUT touching the FASTA and produce bit-identical output
     (VERDICT Missing #3 / Next #5). A stale artifact is rebuilt."""
-    from quickmer2_tpu.io import formats
-    from quickmer2_tpu.ops.anchored import AnchoredIndex
-    from quickmer2_tpu.pipelines.count import run_count
+    from quickmer2.io import formats
+    from quickmer2.ops.anchored import AnchoredIndex
+    from quickmer2.pipelines.count import run_count
 
     rng = np.random.default_rng(21)
     d = str(tmp_path)
@@ -333,7 +333,7 @@ def test_qai_companion_persists_index(tmp_path):
 
     # stale artifact (wrong n_kmers) → load must raise for direct load,
     # and from_dictionary_and_fasta must fall back to a rebuild
-    from quickmer2_tpu.dictionary import Dictionary
+    from quickmer2.dictionary import Dictionary
     dic = Dictionary.from_qm(fa + ".qm")
     k_, G_, tiles_, pos_, nb_, fp_ = formats.read_qai(fa + ".qai")
     formats.write_qai(fa + ".qai", k_, G_, tiles_, pos_[:-5], nb_, fp_)
@@ -344,7 +344,7 @@ def test_qai_companion_persists_index(tmp_path):
 def test_rowpack_roundtrip():
     """pack_rows/unpack_rows is exact for every row shape including
     non-multiple-of-4/8 widths, SEP padding, and N bases."""
-    from quickmer2_tpu.ops import rowpack
+    from quickmer2.ops import rowpack
     rng = np.random.default_rng(3)
     for L in (7, 32, 100, 150, 161):
         rows = rng.integers(0, 4, size=(37, L)).astype(np.uint8)
@@ -384,10 +384,10 @@ def test_qai_fingerprint_rejects_rebuilt_dictionary(tmp_path):
     parameters can keep the same k and n_kmers while changing the k-mer
     SET; the stale .qai must be rejected by content fingerprint, not
     load silently (VERDICT r2 Weak #4 / Next #6)."""
-    from quickmer2_tpu.dictionary import Dictionary
-    from quickmer2_tpu.io import formats
-    from quickmer2_tpu.ops.anchored import AnchoredIndex
-    from quickmer2_tpu.pipelines.count import run_count
+    from quickmer2.dictionary import Dictionary
+    from quickmer2.io import formats
+    from quickmer2.ops.anchored import AnchoredIndex
+    from quickmer2.pipelines.count import run_count
 
     rng = np.random.default_rng(33)
     d = str(tmp_path)
@@ -408,7 +408,7 @@ def test_qai_fingerprint_rejects_rebuilt_dictionary(tmp_path):
     # ONE k-mer (what a different -d rebuild can produce)
     k_, G_, tiles_, pos_, nb_, fp_ = formats.read_qai(fa + ".qai")
     assert fp_ == dic.fingerprint
-    from quickmer2_tpu.dictionary import content_fingerprint
+    from quickmer2.dictionary import content_fingerprint
     altered = dic.kmers_in_order.copy()
     altered[0] ^= 0b1100  # a different canonical code, same count
     wrong_fp = content_fingerprint(altered, dic.kmer_size)
@@ -427,9 +427,9 @@ def test_hbm_budget_fallback(tmp_path):
     """When the anchored structures exceed a forced HBM cap, run_count
     falls back to the flat path bit-identically and reports why
     (VERDICT r2 Missing #4 / Next #8)."""
-    from quickmer2_tpu.io import formats
-    from quickmer2_tpu.ops.anchored import AnchoredIndex
-    from quickmer2_tpu.pipelines.count import run_count
+    from quickmer2.io import formats
+    from quickmer2.ops.anchored import AnchoredIndex
+    from quickmer2.pipelines.count import run_count
 
     rng = np.random.default_rng(44)
     d = str(tmp_path)

@@ -10,10 +10,10 @@ import sys
 import numpy as np
 import pytest
 
-from quickmer2_tpu.config import SearchConfig
-from quickmer2_tpu.io import formats
-from quickmer2_tpu.pipelines import search as search_pipe
-from quickmer2_tpu.pipelines.count import run_count
+from quickmer2.config import SearchConfig
+from quickmer2.io import formats
+from quickmer2.pipelines import search as search_pipe
+from quickmer2.pipelines.count import run_count
 from tests import helpers
 
 

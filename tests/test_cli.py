@@ -8,14 +8,14 @@ import sys
 import numpy as np
 import pytest
 
-from quickmer2_tpu.io import formats
+from quickmer2.io import formats
 from tests import helpers
 
 
 def run_cli(args, cwd):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    return subprocess.run([sys.executable, "-m", "quickmer2_tpu"] + args,
+    return subprocess.run([sys.executable, "-m", "quickmer2"] + args,
                           cwd=cwd, env=env, check=True, capture_output=True,
                           text=True)
 
@@ -72,7 +72,7 @@ def test_cli_stdin_pipe(tmp_path, rng):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     with open(os.path.join(d, "reads.fa"), "rb") as f:
-        subprocess.run([sys.executable, "-m", "quickmer2_tpu", "count",
+        subprocess.run([sys.executable, "-m", "quickmer2", "count",
                         "g.fa", "-", "piped"],
                        cwd=d, env=env, check=True, stdin=f, capture_output=True)
     run_cli(["count", "g.fa", "reads.fa", "direct"], d)

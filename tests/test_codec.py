@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from quickmer2_tpu.ops import codec
+from quickmer2.ops import codec
 from tests import helpers
 
 
@@ -43,6 +43,15 @@ def test_sliding_np_matches_slow_oracle(rng, k):
         else:
             assert valid[i]
             assert int(canon[i]) == want
+
+
+@pytest.mark.parametrize("k", [3, 15, 30, 32])
+def test_window_kmers_np_matches_sliding(rng, k):
+    codes = codec.encode_bases(helpers.random_genome(rng, 2000).encode())
+    canon, _ = codec.sliding_kmers_np(codes, k)
+    starts = rng.choice(len(canon), size=300, replace=False)
+    np.testing.assert_array_equal(codec.window_kmers_np(codes, starts, k),
+                                  canon[starts])
 
 
 @pytest.mark.parametrize("k", [15, 16, 17, 30, 32])

@@ -5,12 +5,12 @@ import os
 import numpy as np
 import pytest
 
-from quickmer2_tpu.config import SearchConfig
-from quickmer2_tpu.io import formats
-from quickmer2_tpu.pipelines import search as search_pipe
-from quickmer2_tpu.pipelines.cohort import run_cohort
-from quickmer2_tpu.pipelines.count import run_count
-from quickmer2_tpu.pipelines.est import run_est
+from quickmer2.config import SearchConfig
+from quickmer2.io import formats
+from quickmer2.pipelines import search as search_pipe
+from quickmer2.pipelines.cohort import run_cohort
+from quickmer2.pipelines.count import run_count
+from quickmer2.pipelines.est import run_est
 from tests import helpers
 
 

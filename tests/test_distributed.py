@@ -9,7 +9,7 @@ import sys
 import numpy as np
 import pytest
 
-from quickmer2_tpu.io import formats
+from quickmer2.io import formats
 from tests import helpers
 
 WORKER = r"""
@@ -18,7 +18,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, {repo!r})
-from quickmer2_tpu.parallel import distributed as dist
+from quickmer2.parallel import distributed as dist
 dist.initialize({coord!r}, {n}, int(sys.argv[1]))
 stats = dist.run_count_distributed({qm!r}, {sample!r},
                                    {out!r} + "." + sys.argv[1],
@@ -30,22 +30,31 @@ print("SHARD", jax.process_index(), stats["shard"])
 
 
 WORKER_CKPT = r"""
-import os, sys
+import os, sys, time
 os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, {repo!r})
-from quickmer2_tpu.parallel import distributed as dist
-from quickmer2_tpu.utils import checkpoint as ckpt
+from quickmer2.parallel import distributed as dist
+from quickmer2.utils import checkpoint as ckpt
 
 if {die!r}:
     # die right after the FIRST checkpoint lands on disk — simulates a
     # process killed mid-stream (SURVEY.md section 5.4's 75G-of-81G
     # scenario); the bytes consumed after that save are lost and must
-    # be re-counted on resume
+    # be re-counted on resume. Every process checkpoints before any dies,
+    # and process 0, which hosts the coordination service, dies last: a
+    # peer that loses the service first aborts with its own exit code.
     real_save = ckpt.save
-    def dying_save(*a, **kw):
-        real_save(*a, **kw)
+    def dying_save(path, *a, **kw):
+        real_save(path, *a, **kw)
+        base = path.rsplit(".p", 1)[0]
+        t0 = time.time()
+        while (not all(os.path.exists(f"{{base}}.p{{i}}") for i in range({n}))
+               and time.time() - t0 < 60):
+            time.sleep(0.05)
+        if sys.argv[1] == "0":
+            time.sleep(2.0)
         os._exit(17)
     ckpt.save = dying_save
 
@@ -76,8 +85,8 @@ def test_two_process_count_matches_single(tmp_path, rng, fmt):
     chr1 = helpers.random_genome(rng, 20000)
     fa = os.path.join(d, "g.fa")
     helpers.write_fasta(fa, {"c1": chr1})
-    from quickmer2_tpu.config import SearchConfig
-    from quickmer2_tpu.pipelines import search as search_pipe
+    from quickmer2.config import SearchConfig
+    from quickmer2.pipelines import search as search_pipe
     search_pipe.run_search(fa, SearchConfig(kmer_size=30, hash_size=1 << 16,
                                             edit_distance=0, window_size=100),
                            verbose=False)
@@ -89,7 +98,7 @@ def test_two_process_count_matches_single(tmp_path, rng, fmt):
         helpers.write_reads_fasta(sample, reads)
 
     # single-process truth
-    from quickmer2_tpu.pipelines.count import run_count
+    from quickmer2.pipelines.count import run_count
     run_count(fa + ".qm", sample, os.path.join(d, "single"),
               batch_bases=1 << 16, verbose=False)
     truth = formats.read_u16(os.path.join(d, "single.bin"))
@@ -119,8 +128,8 @@ def test_two_process_anchored_matches_single(tmp_path, rng):
     chr1 = helpers.random_genome(rng, 20000)
     fa = os.path.join(d, "g.fa")
     helpers.write_fasta(fa, {"c1": chr1})
-    from quickmer2_tpu.config import SearchConfig
-    from quickmer2_tpu.pipelines import search as search_pipe
+    from quickmer2.config import SearchConfig
+    from quickmer2.pipelines import search as search_pipe
     search_pipe.run_search(fa, SearchConfig(kmer_size=30, hash_size=1 << 16,
                                             edit_distance=0, window_size=100),
                            verbose=False)
@@ -131,7 +140,7 @@ def test_two_process_anchored_matches_single(tmp_path, rng):
     sample = os.path.join(d, "reads.fq")
     helpers.write_fastq(sample, reads)
 
-    from quickmer2_tpu.pipelines.count import run_count
+    from quickmer2.pipelines.count import run_count
     run_count(fa + ".qm", sample, os.path.join(d, "single"),
               batch_bases=1 << 16, verbose=False)
     truth = formats.read_u16(os.path.join(d, "single.bin"))
@@ -161,8 +170,8 @@ def test_distributed_checkpoint_resume(tmp_path, rng):
     chr1 = helpers.random_genome(rng, 20000)
     fa = os.path.join(d, "g.fa")
     helpers.write_fasta(fa, {"c1": chr1})
-    from quickmer2_tpu.config import SearchConfig
-    from quickmer2_tpu.pipelines import search as search_pipe
+    from quickmer2.config import SearchConfig
+    from quickmer2.pipelines import search as search_pipe
     search_pipe.run_search(fa, SearchConfig(kmer_size=30, hash_size=1 << 16,
                                             edit_distance=0, window_size=100),
                            verbose=False)
@@ -170,7 +179,7 @@ def test_distributed_checkpoint_resume(tmp_path, rng):
     sample = os.path.join(d, "reads.fq")
     helpers.write_fastq(sample, reads)
 
-    from quickmer2_tpu.pipelines.count import run_count
+    from quickmer2.pipelines.count import run_count
     run_count(fa + ".qm", sample, os.path.join(d, "single"),
               batch_bases=1 << 16, verbose=False)
     truth = formats.read_u16(os.path.join(d, "single.bin"))

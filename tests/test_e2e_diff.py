@@ -10,11 +10,11 @@ import os
 import numpy as np
 import pytest
 
-from quickmer2_tpu.config import SearchConfig
-from quickmer2_tpu.dictionary import Dictionary
-from quickmer2_tpu.io import formats
-from quickmer2_tpu.pipelines import count as count_pipe
-from quickmer2_tpu.pipelines import search as search_pipe
+from quickmer2.config import SearchConfig
+from quickmer2.dictionary import Dictionary
+from quickmer2.io import formats
+from quickmer2.pipelines import count as count_pipe
+from quickmer2.pipelines import search as search_pipe
 from tests import helpers
 
 K = 30

@@ -11,10 +11,10 @@ import os
 import numpy as np
 import pytest
 
-from quickmer2_tpu.config import SearchConfig
-from quickmer2_tpu.dictionary import Dictionary
-from quickmer2_tpu.ops import codec
-from quickmer2_tpu.pipelines import search as search_pipe
+from quickmer2.config import SearchConfig
+from quickmer2.dictionary import Dictionary
+from quickmer2.ops import codec
+from quickmer2.pipelines import search as search_pipe
 from tests import helpers
 
 K = 30
@@ -61,7 +61,7 @@ def test_correct_mode_device_vs_bruteforce(rng, e):
     cmap = dict(zip(uniq.tolist(), sat.tolist()))
 
     H = 1 << 14
-    from quickmer2_tpu.utils import native
+    from quickmer2.utils import native
     table = np.zeros(H, np.uint64)
     slots = native.insert_keys(table, uniq, return_slots=True)
     occr = np.zeros(H, np.uint8)

@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from quickmer2_tpu.config import SearchConfig
-from quickmer2_tpu.pipelines import search as search_pipe
+from quickmer2.config import SearchConfig
+from quickmer2.pipelines import search as search_pipe
 from tests import helpers
 
 
@@ -35,7 +35,7 @@ def test_device_emit_byte_identical(tmp_path, rng, emit_devices):
     search_pipe.run_search(fa_d, cfg(fa_d), verbose=False,
                            emit_devices=emit_devices)
     # small device chunk so the chunk loop actually iterates
-    from quickmer2_tpu.parallel.emit_parallel import DeviceMembershipScanner
+    from quickmer2.parallel.emit_parallel import DeviceMembershipScanner
     assert DeviceMembershipScanner is not None
     for ext in (".qm", ".bed", ".qgc"):
         with open(fa_h + ext, "rb") as a, open(fa_d + ext, "rb") as b:
@@ -45,9 +45,9 @@ def test_device_emit_byte_identical(tmp_path, rng, emit_devices):
 def test_scanner_chunking_matches_host(rng):
     """Direct scanner check with a chunk smaller than the genome (the
     chunk/halo seam logic), vs the host probe."""
-    from quickmer2_tpu.ops import codec
-    from quickmer2_tpu.ops.packed_table import PackedTable, probe_packed_np
-    from quickmer2_tpu.parallel.emit_parallel import DeviceMembershipScanner
+    from quickmer2.ops import codec
+    from quickmer2.ops.packed_table import PackedTable, probe_packed_np
+    from quickmer2.parallel.emit_parallel import DeviceMembershipScanner
 
     chrom = helpers.random_genome(rng, 30000) + "N" * 7 \
         + helpers.random_genome(rng, 3000)

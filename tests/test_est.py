@@ -9,13 +9,13 @@ import subprocess
 import numpy as np
 import pytest
 
-from quickmer2_tpu.analytics import gc_correct
-from quickmer2_tpu.analytics.lowess import lowess
-from quickmer2_tpu.config import SearchConfig
-from quickmer2_tpu.io import formats
-from quickmer2_tpu.pipelines import count as count_pipe
-from quickmer2_tpu.pipelines import est as est_pipe
-from quickmer2_tpu.pipelines import search as search_pipe
+from quickmer2.analytics import gc_correct
+from quickmer2.analytics.lowess import lowess
+from quickmer2.config import SearchConfig
+from quickmer2.io import formats
+from quickmer2.pipelines import count as count_pipe
+from quickmer2.pipelines import est as est_pipe
+from quickmer2.pipelines import search as search_pipe
 from tests import helpers
 
 K = 30
@@ -23,7 +23,7 @@ K = 30
 SHIM = """#!/usr/bin/env python3
 import sys, struct, os
 sys.path.insert(0, {repo!r})
-from quickmer2_tpu.analytics.gc_correct import factors_from_txt
+from quickmer2.analytics.gc_correct import factors_from_txt
 factors, _ = factors_from_txt(sys.argv[1])
 with os.fdopen(sys.stdout.fileno(), "wb", closefd=False) as out:
     out.write(struct.pack("f" * len(factors), *factors.tolist()))
@@ -31,19 +31,39 @@ with os.fdopen(sys.stdout.fileno(), "wb", closefd=False) as out:
 """
 
 
+def _reference_lowess(x, y, f, iters=3):
+    """The reference lowess.py's algorithm, point by point: tricube
+    weights over the r nearest neighbours, one weighted linear fit per
+    point solved with lstsq, bisquare robustifying weights."""
+    n = len(x)
+    r = int(np.ceil(f * n))
+    h = np.array([np.sort(np.abs(x - x[i]))[r] for i in range(n)])
+    w = np.clip(np.abs((x[:, None] - x[None, :]) / h), 0.0, 1.0)
+    w = (1 - w ** 3) ** 3
+    yest = np.zeros(n)
+    delta = np.ones(n)
+    for _ in range(iters):
+        for i in range(n):
+            weights = delta * w[:, i]
+            b = np.array([np.sum(weights * y), np.sum(weights * y * x)])
+            a = np.array([[np.sum(weights), np.sum(weights * x)],
+                          [np.sum(weights * x), np.sum(weights * x * x)]])
+            beta = np.linalg.lstsq(a, b, rcond=None)[0]
+            yest[i] = beta[0] + beta[1] * x[i]
+        resid = y - yest
+        s = np.median(np.abs(resid))
+        delta = np.clip(resid / (6.0 * s), -1, 1)
+        delta = (1 - delta ** 2) ** 2
+    return yest
+
+
 def test_lowess_matches_reference_impl(rng):
-    """Our closed-form LOWESS vs the reference lowess.py run verbatim
-    semantics (reimplemented inline with lstsq, since the original is
-    importable and numpy-2 clean)."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "ref_lowess", "/root/reference/lowess.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    """Our closed-form LOWESS vs the reference lowess.py's semantics
+    (reimplemented above with a per-point lstsq solve)."""
     x = np.arange(201) / 4.0 + 25.0
     y = 20 + 5 * np.sin(x / 8.0) + rng.normal(0, 0.5, size=201)
     ours = lowess(x, y, f=0.15)
-    theirs = mod.lowess(x, y, f=0.15)
+    theirs = _reference_lowess(x, y, f=0.15)
     np.testing.assert_allclose(ours, theirs, rtol=1e-8, atol=1e-8)
 
 
@@ -159,7 +179,7 @@ def test_window_sums_precision_at_scale():
     accuracy at human scale (the round-1 global float32 cumsum lost all
     precision past ~1e7 k-mers x depth 25; VERDICT Weak #8)."""
     import jax.numpy as jnp
-    from quickmer2_tpu.ops.est_device import corrected_window_sums
+    from quickmer2.ops.est_device import corrected_window_sums
 
     n = 101_000_000          # > 1e8 k-mers
     w = 1000

@@ -6,8 +6,8 @@ force bucket overflow and thus exercise the fast/slow split."""
 import numpy as np
 import pytest
 
-from quickmer2_tpu.ops import codec
-from quickmer2_tpu.ops.hamming_join import (
+from quickmer2.ops import codec
+from quickmer2.ops.hamming_join import (
     hamming_neighbor_sums, part_ranges)
 from tests import helpers
 
@@ -90,7 +90,7 @@ def test_join_overflow_slow_path(rng):
                                  escalate_min=1)
     np.testing.assert_array_equal(got2, want)
     # sanity: overflow actually happened at this cpad
-    from quickmer2_tpu.ops.hamming_join import _extract_part_np
+    from quickmer2.ops.hamming_join import _extract_part_np
     whi, wlo = codec.split_u64(uniq)
     overflowed = False
     for (s, t) in part_ranges(k):
@@ -116,8 +116,8 @@ def test_run_search_filter_impls_agree(tmp_path, rng):
     """run_search with the hamming-join filter, the packed-probe
     filter, and the host filter must build identical dictionaries
     (correct-math mode, e=2)."""
-    from quickmer2_tpu.config import SearchConfig
-    from quickmer2_tpu.pipelines import search as search_pipe
+    from quickmer2.config import SearchConfig
+    from quickmer2.pipelines import search as search_pipe
 
     seq = helpers.random_genome(rng, 4000)
     noisy = list(seq)
@@ -149,11 +149,11 @@ def test_neighbor_bits_join_matches_probe_builders(rng):
     bit-identical to both probe-based builders on a repeat-heavy genome
     with planted ED1 neighbor copies."""
     import numpy as np
-    from quickmer2_tpu.ops import codec
-    from quickmer2_tpu.ops.anchored import (
+    from quickmer2.ops import codec
+    from quickmer2.ops.anchored import (
         build_neighbor_bits, build_neighbor_bits_device)
-    from quickmer2_tpu.ops.hamming_join import hamming_neighbor_bits
-    from quickmer2_tpu.ops.packed_table import PackedTable
+    from quickmer2.ops.hamming_join import hamming_neighbor_bits
+    from quickmer2.ops.packed_table import PackedTable
 
     k = 30
     G = 60_000
@@ -185,7 +185,7 @@ def test_neighbor_bits_join_matches_probe_builders(rng):
     np.testing.assert_array_equal(ref_host, ref_dev)
     # small cpads force heavy bucket overflow -> the host slow path
     # runs at volume; escalation (240-wide re-join) is disabled on CPU
-    # because its B*240-lane layouts are a TPU-scale allocation
+    # because its B*240-lane layouts are an accelerator-scale allocation
     got = hamming_neighbor_bits(g, dict_kmers, k, cpad=8, cpad_q=4,
                                 chunk_q=20_000, escalate=False)
     np.testing.assert_array_equal(got, ref_host)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from quickmer2_tpu.ops import codec, hash as qhash
-from quickmer2_tpu.utils import native
+from quickmer2.ops import codec, hash as qhash
+from quickmer2.utils import native
 
 
 def djb_slow(kmer: int) -> int:

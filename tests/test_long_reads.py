@@ -8,9 +8,9 @@ check exact window counts."""
 
 import numpy as np
 
-from quickmer2_tpu.config import SearchConfig
-from quickmer2_tpu.pipelines import search as search_pipe
-from quickmer2_tpu.pipelines.count import DepthCounter, make_packer
+from quickmer2.config import SearchConfig
+from quickmer2.pipelines import search as search_pipe
+from quickmer2.pipelines.count import DepthCounter, make_packer
 from tests import helpers
 
 K = 30
@@ -47,8 +47,8 @@ def test_hifi_reads_no_window_loss(tmp_path, rng):
 def test_sparse_dictionary_long_read_flow(tmp_path, rng):
     """HiFi + sparse fractionated dictionary (BASELINE config 5):
     thin the dictionary, count a long read against the .rqm."""
-    from quickmer2_tpu.pipelines.sparse import run_sparse
-    from quickmer2_tpu.io import formats
+    from quickmer2.pipelines.sparse import run_sparse
+    from quickmer2.io import formats
     chr1 = helpers.random_genome(rng, 40000)
     fa = str(tmp_path / "g.fa")
     helpers.write_fasta(fa, {"c1": chr1})
@@ -70,8 +70,8 @@ def test_long_reads_ride_anchored_path_via_segments(tmp_path, rng):
     """HiFi reads segment into k-1-overlap rows and ride the anchored
     fast path (VERDICT r4 Missing #2): zero overflow, exact window
     counts, depth bit-identical to the flat path."""
-    from quickmer2_tpu.ops.anchored import AnchoredIndex
-    from quickmer2_tpu.pipelines.count import StreamCounter
+    from quickmer2.ops.anchored import AnchoredIndex
+    from quickmer2.pipelines.count import StreamCounter
     chr1 = helpers.random_genome(rng, 60000)
     fa = str(tmp_path / "g.fa")
     helpers.write_fasta(fa, {"c1": chr1})
@@ -107,8 +107,8 @@ def test_long_reads_ride_anchored_path_via_segments(tmp_path, rng):
 def test_segment_rows_window_exactness(rng):
     """Each k-mer window of an overlong read lands in EXACTLY one
     segment row (the k-1-overlap invariant), for awkward lengths."""
-    from quickmer2_tpu.ops import codec
-    from quickmer2_tpu.ops.anchored import rows_from_flat_codes
+    from quickmer2.ops import codec
+    from quickmer2.ops.anchored import rows_from_flat_codes
     read_len, k = 96, 30
     for L in (97, 96 + 67, 500, 1000, 1003):
         codes = rng.integers(0, 4, size=L).astype(np.uint8)

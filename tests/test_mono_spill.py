@@ -4,10 +4,10 @@ count, including the side-table drain (forced small mono buckets)."""
 
 import numpy as np
 
-from quickmer2_tpu.config import SearchConfig
-from quickmer2_tpu.ops import codec
-from quickmer2_tpu.ops.anchored import AnchoredDepthCounter, rows_from_flat_codes
-from quickmer2_tpu.pipelines.count import DepthCounter
+from quickmer2.config import SearchConfig
+from quickmer2.ops import codec
+from quickmer2.ops.anchored import AnchoredDepthCounter, rows_from_flat_codes
+from quickmer2.pipelines.count import DepthCounter
 from tests import helpers
 
 K = 30
@@ -15,9 +15,9 @@ READ_LEN = 100
 
 
 def _world(tmp_path, rng):
-    from quickmer2_tpu.dictionary import Dictionary
-    from quickmer2_tpu.ops.anchored import AnchoredIndex
-    from quickmer2_tpu.pipelines import search as search_pipe
+    from quickmer2.dictionary import Dictionary
+    from quickmer2.ops.anchored import AnchoredIndex
+    from quickmer2.pipelines import search as search_pipe
     chrom = helpers.random_genome(rng, 25000)
     fa = str(tmp_path / "g.fa")
     helpers.write_fasta(fa, {"c1": chrom})

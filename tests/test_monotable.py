@@ -6,10 +6,10 @@ table (overflow keys) and the unresolved drain actually run."""
 import numpy as np
 import pytest
 
-from quickmer2_tpu.dictionary import Dictionary
-from quickmer2_tpu.ops import codec
-from quickmer2_tpu.ops.monotable import ENTRIES, MonoTable, probe_mono
-from quickmer2_tpu.pipelines.count import DepthCounter
+from quickmer2.dictionary import Dictionary
+from quickmer2.ops import codec
+from quickmer2.ops.monotable import ENTRIES, MonoTable, probe_mono
+from quickmer2.pipelines.count import DepthCounter
 from tests import helpers
 
 K = 30

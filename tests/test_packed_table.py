@@ -6,9 +6,47 @@ import pytest
 
 import jax.numpy as jnp
 
-from quickmer2_tpu.ops import codec
-from quickmer2_tpu.ops.packed_table import (
-    ENTRIES_PER_BUCKET, PackedTable, probe_packed)
+from quickmer2.ops import codec
+from quickmer2.ops.packed_table import (
+    ENTRIES_PER_BUCKET, PackedTable, _cuckoo_evict, bucket_hashes,
+    bucket_hashes_jnp, probe_packed)
+
+
+@pytest.mark.parametrize("log2_buckets", [1, 16, 27, 32])
+def test_bucket_hashes_reach_every_bucket_range(rng, log2_buckets):
+    """h2 spreads over the whole table, also above 2^25 buckets, and the
+    host (build) and device (probe) hashes agree."""
+    n_buckets = 1 << log2_buckets
+    h = rng.integers(0, 1 << 32, size=1 << 16, dtype=np.uint64).astype(np.uint32)
+    h1, h2 = bucket_hashes(h, n_buckets)
+    assert int(h1.max()) < n_buckets and int(h2.max()) < n_buckets
+    # the top eighth of the table is reached by h2
+    assert int(h2.max()) >= 7 * n_buckets // 8
+    j1, j2 = bucket_hashes_jnp(jnp.asarray(h), n_buckets)
+    np.testing.assert_array_equal(np.asarray(j1), h1)
+    np.testing.assert_array_equal(np.asarray(j2), h2)
+
+
+def test_bucket_hashes_reject_non_power_of_two():
+    with pytest.raises(ValueError):
+        bucket_hashes(np.zeros(4, np.uint32), 3 << 20)
+
+
+def test_cuckoo_escapes_two_bucket_cycle():
+    """Buckets 0 and 1 are full and the pending key hashes to both. The
+    only way out is to evict key 2 (to empty bucket 2) or key 3 (to
+    empty bucket 3). A victim chosen by kick parity alternates between
+    the other two entries of each bucket for ever; the walk must not."""
+    C = ENTRIES_PER_BUCKET
+    assert C == 2
+    h1 = np.array([0, 0, 0, 1, 1], np.uint32)
+    h2 = np.array([1, 1, 2, 3, 0], np.uint32)
+    slot_of = np.array([-1, 0, 1, 2, 3], np.int64)   # bucket * C + entry
+    assert _cuckoo_evict(np.array([0]), slot_of, h1, h2, 4)
+    assert (slot_of >= 0).all()
+    assert len(np.unique(slot_of)) == len(slot_of)
+    bucket = slot_of // C
+    assert ((bucket == h1) | (bucket == h2)).all()
 
 
 def test_build_places_every_key(rng):
@@ -55,9 +93,9 @@ def test_probe_hits_and_misses(rng):
 
 
 def test_count_packed_matches_linear(tmp_path, rng):
-    from quickmer2_tpu.config import SearchConfig
-    from quickmer2_tpu.pipelines import search as search_pipe
-    from quickmer2_tpu.pipelines.count import DepthCounter, make_packer
+    from quickmer2.config import SearchConfig
+    from quickmer2.pipelines import search as search_pipe
+    from quickmer2.pipelines.count import DepthCounter, make_packer
     from tests import helpers
 
     chr1 = helpers.random_genome(rng, 20000)
@@ -82,9 +120,9 @@ def test_count_packed_matches_linear(tmp_path, rng):
 def test_sortjoin_layout_matches_packed(rng):
     """DepthCounter(layout="sortjoin") — the random-access-free
     sort-merge-join engine — must produce bit-identical depth."""
-    from quickmer2_tpu.config import SearchConfig
-    from quickmer2_tpu.pipelines import search as search_pipe
-    from quickmer2_tpu.pipelines.count import DepthCounter, make_packer
+    from quickmer2.config import SearchConfig
+    from quickmer2.pipelines import search as search_pipe
+    from quickmer2.pipelines.count import DepthCounter, make_packer
     from tests import helpers
     import tempfile
 
@@ -106,3 +144,16 @@ def test_sortjoin_layout_matches_packed(rng):
     a.feed_codes(codes)
     b.feed_codes(codes)
     np.testing.assert_array_equal(b.finish(), a.finish())
+
+
+@pytest.mark.parametrize("cap,want", [(300, "sortjoin"), (299, "mono")])
+def test_auto_layout_picks_engine_by_dictionary_size(rng, monkeypatch, cap,
+                                                     want):
+    from quickmer2.dictionary import Dictionary
+    from quickmer2.pipelines import count
+    keys = np.unique(rng.integers(1, 1 << 60, size=300, dtype=np.uint64))
+    assert len(keys) == 300
+    dic = Dictionary.from_kmers_in_order(keys, 1 << 16, 30)
+    monkeypatch.setattr(count, "AUTO_SORTJOIN_MAX_N", cap)
+    assert count.DepthCounter(dic, batch_bases=1 << 12,
+                              layout="auto").layout == want

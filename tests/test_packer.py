@@ -7,8 +7,8 @@ boundary; VERDICT Weak #6)."""
 import numpy as np
 import pytest
 
-from quickmer2_tpu.pipelines.count import PyPacker
-from quickmer2_tpu.utils import native
+from quickmer2.pipelines.count import PyPacker
+from quickmer2.utils import native
 
 
 def _fastq_bytes():

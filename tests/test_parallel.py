@@ -5,11 +5,11 @@ import pytest
 
 import jax
 
-from quickmer2_tpu.config import SearchConfig
-from quickmer2_tpu.parallel.count_parallel import ShardedDepthCounter
-from quickmer2_tpu.parallel.mesh import make_mesh
-from quickmer2_tpu.pipelines import search as search_pipe
-from quickmer2_tpu.pipelines.count import DepthCounter, make_packer
+from quickmer2.config import SearchConfig
+from quickmer2.parallel.count_parallel import ShardedDepthCounter
+from quickmer2.parallel.mesh import make_mesh
+from quickmer2.pipelines import search as search_pipe
+from quickmer2.pipelines.count import DepthCounter, make_packer
 from tests import helpers
 
 K = 30
@@ -66,7 +66,7 @@ def test_sharded_determinism(setup):
 def anchored_setup(tmp_path_factory):
     """Genome + index + mixed clean/error/garbage reads that exercise
     all three tiers of the anchored counter."""
-    from quickmer2_tpu.ops.anchored import AnchoredIndex, rows_from_flat_codes
+    from quickmer2.ops.anchored import AnchoredIndex, rows_from_flat_codes
 
     rng = np.random.default_rng(9)
     d = tmp_path_factory.mktemp("apar")
@@ -99,7 +99,7 @@ def test_anchored_sharded_matches(anchored_setup, single_anchored_depth,
     """All mesh shapes — including dict-sharded rows (ds > 1, the >HBM
     escape: bucket blocks per device, anchor psum, local dirty/exact
     scatters) — must be bit-identical to the single-device counter."""
-    from quickmer2_tpu.parallel.anchored_parallel import ShardedAnchoredCounter
+    from quickmer2.parallel.anchored_parallel import ShardedAnchoredCounter
     mesh = make_mesh(dp, ds)
     c = ShardedAnchoredCounter(anchored_setup["index"], K, 100, mesh,
                                batch_reads=512)
@@ -109,7 +109,7 @@ def test_anchored_sharded_matches(anchored_setup, single_anchored_depth,
 
 @pytest.fixture(scope="module")
 def single_anchored_depth(anchored_setup):
-    from quickmer2_tpu.ops.anchored import AnchoredDepthCounter
+    from quickmer2.ops.anchored import AnchoredDepthCounter
     c = AnchoredDepthCounter(anchored_setup["index"], K, 100,
                              batch_reads=512)
     c.feed_reads(anchored_setup["rows"])
@@ -125,8 +125,8 @@ def single_anchored_depth(anchored_setup):
 def test_run_count_data_devices(tmp_path, anchored_setup, mode):
     """run_count(data_devices=4) must be bit-identical to single-device
     for both modes (end-to-end through the file pipeline)."""
-    from quickmer2_tpu.io import formats
-    from quickmer2_tpu.pipelines.count import run_count
+    from quickmer2.io import formats
+    from quickmer2.pipelines.count import run_count
 
     rng = np.random.default_rng(13)
     d = str(tmp_path)
@@ -152,8 +152,8 @@ def test_run_count_data_devices(tmp_path, anchored_setup, mode):
 def test_run_count_dict_devices(tmp_path, mode):
     """run_count(dict_devices=4): dictionary bucket-block sharding
     through the file pipeline, bit-identical to single-device."""
-    from quickmer2_tpu.io import formats
-    from quickmer2_tpu.pipelines.count import run_count
+    from quickmer2.io import formats
+    from quickmer2.pipelines.count import run_count
 
     rng = np.random.default_rng(17)
     d = str(tmp_path)

@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-from quickmer2_tpu.dictionary import Dictionary
-from quickmer2_tpu.io import formats
-from quickmer2_tpu.pipelines import index as index_pipe
-from quickmer2_tpu.pipelines import sparse as sparse_pipe
+from quickmer2.dictionary import Dictionary
+from quickmer2.io import formats
+from quickmer2.pipelines import index as index_pipe
+from quickmer2.pipelines import sparse as sparse_pipe
 from tests import helpers
 
 K = 30

@@ -24,15 +24,11 @@ from tools.rehearsal import simulate_reads_codes, write_fastq_codes  # noqa: E40
 
 
 def main():
-    plat = os.environ.get("QM2_BENCH_PLATFORM")
-    if plat:
-        import jax
-        jax.config.update("jax_platforms", plat)
-    from quickmer2_tpu.config import SearchConfig
-    from quickmer2_tpu.io import formats
-    from quickmer2_tpu.pipelines import search as search_pipe
-    from quickmer2_tpu.pipelines.cohort import run_cohort
-    from quickmer2_tpu.pipelines.count import run_count
+    from quickmer2.config import SearchConfig
+    from quickmer2.io import formats
+    from quickmer2.pipelines import search as search_pipe
+    from quickmer2.pipelines.cohort import run_cohort
+    from quickmer2.pipelines.count import run_count
 
     args = sys.argv[1:]
     mb = float(args[0]) if args else 4.0
